@@ -1,4 +1,5 @@
-"""altair_tpu — TPU-native Monte-Carlo integrating-sphere photon tracer.
+"""altair_tpu — Monte-Carlo integrating-sphere photon tracer in JAX, run on
+NVIDIA GPUs.
 
 A brand-new JAX/XLA framework with the capabilities of the ALTAIR
 integrating-sphere raytracing study (reference: bdagnillo/altair-raytracing —

@@ -279,7 +279,7 @@ def cmd_analyze(args):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="altair-tpu",
-        description="TPU-native integrating-sphere photon tracer")
+        description="GPU integrating-sphere photon tracer")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("fluxmap", help="observer flux-map sweep")
@@ -384,6 +384,9 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_analyze)
 
     args = ap.parse_args(argv)
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -198,16 +198,16 @@ class TraceConfig:
     * ``"auto"``   — closed-form direct sampling for statically-Lambertian
       scenes (distribution-exact, see ``core/trace_direct.py``), simulation
       kernels otherwise;
-    * ``"simulate"`` — always simulate the bounce chain (Pallas VMEM kernel
-      on TPU, XLA while-loop/waves elsewhere);
+    * ``"simulate"`` — always simulate the bounce chain (the Pallas bounce
+      kernel on the GPU backend, XLA while-loop/waves elsewhere);
     * ``"direct"`` — require the direct sampler (error if inapplicable).
     """
 
     dtype: Any = jnp.float32
     block_iters: int = 32
-    rng_impl: str = "threefry2x32"   # "rbg" is ~20% faster on TPU; threefry
-                                     # is the counter-based reproducible
-                                     # default (used via make_key())
+    rng_impl: str = "threefry2x32"   # threefry is the counter-based
+                                     # reproducible default (used via
+                                     # make_key()); "rbg" is the option
     keep_history: int = 0            # >0: record up to N path points (viz only)
     engine: str = "auto"             # "auto" | "simulate" | "direct"
     qmc: int = 0                     # 1: digitally-shifted Sobol draws in

@@ -1,14 +1,14 @@
-"""Stream-compaction primitives tuned for TPU.
+"""Stream-compaction primitives.
 
-``jnp.nonzero(mask, size=m)`` dominates the deferred-rim pipeline at
-large N (~180 ms of a ~330 ms 16M-ray trace on v5e — XLA lowers it
-through a full-width cumsum plus a slow index build).  The replacement
-here computes the same first-``size`` indices with a BLOCKED prefix sum
-(vector-friendly: cumsum along the 1024-lane minor axis of an
-``[n/1024, 1024]`` reshape plus a tiny cumsum over block totals) and one
-int32 scatter whose indices are strictly increasing (each masked lane's
-exclusive global prefix count) — measured 110 ms vs 182 ms at 16M lanes,
-bit-identical output (``tests/test_compact.py``).
+``jnp.nonzero(mask, size=m)`` sits on the deferred-rim pipeline at large N
+(XLA lowers it through a full-width cumsum plus an index build).  The
+replacement here computes the same first-``size`` indices with a BLOCKED
+prefix sum (cumsum along the 1024-lane minor axis of an ``[n/1024, 1024]``
+reshape plus a tiny cumsum over block totals) and one int32 scatter whose
+indices are strictly increasing (each masked lane's exclusive global
+prefix count) — bit-identical output (``tests/test_compact.py``).  It was
+the faster form on an earlier build; on the H100 it is not yet
+measured against ``jnp.nonzero``.
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ def nonzero_indices(mask, size: int, fill: int):
     # beyond-capacity lanes and unmasked lanes land out of bounds -> drop.
     # No unique/sorted scatter hints: the index vector interleaves the
     # ascending masked-lane positions with the duplicate out-of-bounds
-    # `size` for every unmasked lane, so those hints would be UB (and
-    # measured no speedup on v5e anyway).
+    # `size` for every unmasked lane, so those hints would be UB.
     pos = jnp.where(mask, _exclusive_ranks(mask), size)
     return jnp.full((size,), fill, jnp.int32).at[pos].set(
         jnp.arange(n, dtype=jnp.int32), mode="drop")
@@ -58,7 +57,8 @@ def nonzero_indices_grouped(mask, size: int, fill: int, group_capacity: int,
     """Two-level ``nonzero_indices`` for SPARSE masks.
 
     The flat version's cost is dominated by a full-width int32 scatter
-    (~70 ms of its ~110 ms at 16M lanes on v5e).  Here the lanes are
+    (on an earlier build; not yet measured on the H100).  Here the
+    lanes are
     grouped by ``group``; level 1 compacts the ``n/group`` group-any flags
     into the first ``group_capacity`` group indices (an 8x-smaller rank +
     scatter), level 2 row-gathers the selected groups' lanes and ranks

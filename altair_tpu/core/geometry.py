@@ -1,4 +1,4 @@
-"""Analytic geometry primitives (TPU-native replacement for TGeo/ROBAST
+"""Analytic geometry primitives (array-program replacement for TGeo/ROBAST
 navigation).
 
 The reference delegates geometry to ROOT's TGeo engine (``TGeoSphere`` shell +
@@ -8,9 +8,9 @@ with a polar-cap port inside a box, so closed-form intersections replace the
 navigator entirely — no BVH, no voxelization.
 
 Layout: vectors are structure-of-arrays (``Vec3`` = three ``[N]`` component
-arrays) so the ray batch axis lands on the TPU lane dimension.  An ``[N, 3]``
-layout would waste 128/3 of the vector lanes to tiling padding; three flat
-``[N]`` arrays keep the VPU fully occupied.
+arrays) so the ray batch axis is the contiguous, vectorised axis: three flat
+``[N]`` arrays load and store coalesced, where an ``[N, 3]`` layout would
+stride every component access.
 """
 
 from __future__ import annotations

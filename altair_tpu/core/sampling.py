@@ -1,4 +1,4 @@
-"""Scatter-law sampling (TPU-native replacement for ROBAST's border-surface
+"""Scatter-law sampling (array-program replacement for ROBAST's border-surface
 conditions and the macros' custom BRDFs).
 
 Everything is a pure function of a counter-based key: ``jax.random`` threefry

@@ -1,12 +1,12 @@
-"""Detector readout — TPU-native replacement for the reference's scoring
-loops.
+"""Detector readout — the array-program replacement for the reference's
+scoring loops.
 
 The reference's fast path caches every exiting ray's final segment and tests
 16,200 detector positions against them in a scalar C++ double loop
 (``fluxAtObserverFast.C:1269-1341``, ~10^9 plane/disk tests, 104-2191 s).
-Here the same test is three ``[N,3] x [3,P]`` matmuls plus a fused elementwise
-mask — the whole sweep collapses to one kernel on the MXU/VPU, chunked over
-positions to bound the ``[N, P_chunk]`` working set.
+Here the same test is a few small-K matmuls plus a fused elementwise mask —
+the whole sweep collapses to one device program, chunked over positions to
+bound the ``[N, P_chunk]`` working set.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def _hits_block(E, D, rowmask, C, Nrm, half_w):
 
     Implements ``Detector::checkIntersection`` (``fluxAtObserver.C:70-107``)
     pairwise: infinite-line/plane intersection, in-plane distance <= width/2,
-    parallel rays (|d.n| < 1e-10) excluded.  All pair terms are MXU matmuls.
+    parallel rays (|d.n| < 1e-10) excluded.  All pair terms are matmuls.
     """
     f32 = jnp.float32
     E = E.astype(f32)
@@ -52,11 +52,12 @@ def _hits_block(E, D, rowmask, C, Nrm, half_w):
     C = C.astype(f32)
     Nrm = Nrm.astype(f32)
 
-    # Precision.HIGHEST is LOAD-BEARING: the TPU default truncates matmul
-    # inputs to bf16, and the expanded r^2 below subtracts O(|E|^2) pair
-    # terms — bf16 noise (~0.4% of 519-cm box points) turns t and r^2
-    # into garbage for a position-dependent subset of pairs (measured up
-    # to +40% spurious hits per detector row before the fix).
+    # Precision.HIGHEST is LOAD-BEARING: a lower matmul precision rounds
+    # the f32 inputs (bf16 or TF32 keep 8-10 mantissa bits), and the
+    # expanded r^2 below subtracts O(|E|^2) pair terms — input rounding of
+    # ~0.1-0.4% of 519-cm box points turns t and r^2 into garbage for a
+    # position-dependent subset of pairs (seen as up to +40% spurious hits
+    # per detector row on a bf16-default device).
     HI = jax.lax.Precision.HIGHEST
     dn = jax.lax.dot_general(  # [N,P]  d . n_p
         D, Nrm, (((1,), (1,)), ((), ())), preferred_element_type=f32,
@@ -86,7 +87,8 @@ def _hits_block(E, D, rowmask, C, Nrm, half_w):
 
 
 def _plucker_weights(C, Nrm, half_w):
-    """Per-position 21-vector of quadratic-form weights for the MXU scorer.
+    """Per-position 21-vector of quadratic-form weights for the Plucker
+    scorer.
 
     The disk test multiplied through by b^2 (b = d.n) is
     ``|V|^2 <= R^2 b^2`` with ``V = b (rel x n) - a (d x n)`` — and V is
@@ -148,30 +150,24 @@ def _plucker_features(E, D):
 
 
 def _hits_block_mxu(Phi, D, rowmask, W, Nrm):
-    """MXU pair test for one position block: one [N,21]x[21,P] matmul for
-    the disk condition plus the K=3 parallel guard.  Same semantics as
+    """Plucker pair test for one position block: one [N,21]x[21,P] matmul
+    for the disk condition plus the K=3 parallel guard.  Same semantics as
     ``_hits_block`` (infinite line, |d.n| >= 1e-10), multiplied through by
     b^2 so there is no division."""
     f32 = jnp.float32
-    # HIGHEST on s is LOAD-BEARING (bf16 inputs break the cancellation-
-    # sensitive quadratic form, see _hits_block) and irreducible: each
-    # precision pass runs at ~full MXU utilisation (~70 ms per pass at
-    # 2.9M x 16,200 on v5e), and every cheaper scheme measured — HIGH s
-    # with a rank-1 error band, a dn-band row fixup, split-product
-    # K-packing — failed either the band-occupancy premise (the form
-    # s = b^2 (dist^2 - R^2) degenerates at small b) or TPU numerics;
-    # see benchmarks/RESULTS.md "Scoring precision".
+    # HIGHEST on s is LOAD-BEARING: rounded inputs break the cancellation-
+    # sensitive quadratic form (see _hits_block), and no cheaper scheme
+    # survives the form's degeneracy at small b (s = b^2 (dist^2 - R^2)).
     s = jax.lax.dot_general(   # [N,P]  r^T M_p r
         Phi, W, (((1,), (1,)), ((), ())), preferred_element_type=f32,
         precision=jax.lax.Precision.HIGHEST)
-    # The parallel GUARD tolerates HIGH (3 passes, saving 3 of 12): its
-    # absolute error <= ~2.3e-5 can only flip the |d.n| >= 1e-10 guard
-    # where |d.n| <= 2.3e-5 — and there s = b^2 (dist^2 - R^2) is f32
-    # noise in every variant, the same edge population the mxu-vs-exact
-    # equivalence already tolerates (2e-6 of hits).
+    # The parallel guard is a K=3 product: HIGHEST costs little, and one
+    # precision everywhere keeps the guard's error an f32 rounding on
+    # every device, so only pairs with |d.n| at f32 noise can flip — the
+    # same edge population the mxu-vs-exact equivalence already tolerates.
     dn = jax.lax.dot_general(  # [N,P]  d . n_p
         D.astype(f32), Nrm.astype(f32), (((1,), (1,)), ((), ())),
-        preferred_element_type=f32, precision=jax.lax.Precision.HIGH)
+        preferred_element_type=f32, precision=jax.lax.Precision.HIGHEST)
     hit = (s <= 0.0) & (jnp.abs(dn) >= PARALLEL_EPS) & rowmask[:, None]
     return jnp.sum(hit, axis=0, dtype=jnp.int32)
 
@@ -335,10 +331,9 @@ def fluxmap_retrace(
     with independent noise per position; kept for cross-method consistency
     checks (SURVEY.md §4.3).  Returns ``[n_theta, n_phi]`` hit counts.
 
-    ``pos_chunk=None`` picks the measured v5e optimum: the per-scan-step
-    throughput curve is flat over 16/32/45 positions/step and cliffs past
-    ~4M rays/step (HBM pressure; benchmarks/run_all.py), so the default is
-    32 capped so a step stays under 2^22 rays.
+    ``pos_chunk=None`` picks 32 positions per scan step, capped so a step
+    stays under 2^22 rays (chosen on an earlier build, not yet
+    measured on the H100).
 
     ``centers_normals``: optional explicit ``([P,3], [P,3])`` detector
     placement override — pass DYNAMIC arrays here to reuse one compiled
@@ -408,7 +403,7 @@ def fluxmap_retrace_binomial(
        physics (whatever engine ``trace_rays_auto`` dispatches — exact-rim
        post-pass included);
     2. score the compacted exit segments against all P positions (the
-       MXU Plucker matmul) -> hit counts ``X_p``; ``pi_hat_p = X_p / M``
+       Plucker matmul) -> hit counts ``X_p``; ``pi_hat_p = X_p / M``
        is unbiased with ``Var = pi_p (1 - pi_p) / M``;
     3. draw ``Y_p ~ Binomial(n_per_pos, pi_hat_p)`` independently per
        position (exact sampler: inversion / transformed rejection).
@@ -444,9 +439,9 @@ def fluxmap_retrace_binomial(
     M = int(oversample) * int(n_per_pos)
     cap = exit_capacity(scene, M)
     if pos_chunk is None:
-        # 256 positions/chunk measured best on v5e (0.87 vs 0.93 s at 92
-        # for the full production scoring); cap the [cap, pos_chunk] f32
-        # block at ~3 GB for small-memory safety
+        # 256 positions/chunk (chosen on an earlier build, not yet
+        # measured on the H100); cap the [cap, pos_chunk] f32 block at
+        # ~3 GB for small-memory safety
         pos_chunk = max(8, min(256, (3 << 28) // max(cap, 1)))
     if qmc and not cfg.qmc:
         cfg = dataclasses.replace(cfg, qmc=1)

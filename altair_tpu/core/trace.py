@@ -1,12 +1,11 @@
-"""The bounce kernel — TPU-native replacement for
+"""The bounce kernel — the array-program replacement for
 ``AOpticsManager::TraceNonSequential`` (ROBAST's C++ trace loop, called at
 ``fluxAtObserver.C:202`` / ``fluxAtObserverOptimize.C:295``).
 
 Instead of an object-per-ray state machine on <=4 CPU threads
 (``fluxAtObserverOptimize.C:450-454``), the whole batch advances one bounce
 per iteration of a ``lax.while_loop``: closed-form sphere intersection, port
-test, reflectance roulette, scatter sample — all ``[N]``-vectorised on the
-VPU.  Rays are structure-of-arrays (three ``[N]`` component arrays), statuses
+test, reflectance roulette, scatter sample — all ``[N]``-vectorised.  Rays are structure-of-arrays (three ``[N]`` component arrays), statuses
 are an ``[N]`` int vector (replacing ``ARayArray::GetStopped/GetExited``
 partitioning with masks), and the loop exits as soon as every ray is dead.
 
@@ -328,13 +327,11 @@ _WAVES_CONTINUATION_MIN = 65536
 # finish (non-Lambertian walls — the nonLambertianFlux.C production path).
 # The clip buffer enters at ~1/2.8 occupancy, so a short first wave +
 # early compaction was HYPOTHESIZED to trim dead padding before the long
-# bounce tail; the measured v5e sweep (benchmarks/roofline_r5_sim.json,
-# 16M rays, Lambertian AND MIXED_BRDF) says otherwise: every shortened
-# first wave loses 4-10% (lamb fw None/32/16/8 -> 19.55/17.54/17.75/17.70
-# M rays/s; brdf -> 12.55/11.85/11.94/12.01), exit fractions all within
-# the 4-sigma pin.  The extra compaction pass costs more than the padded
-# iterations it saves, so the shipped schedule stays (None, 4)
-# (RIM_CONT_FIRST_WAVE=None means "same as RIM_CONT_WAVE_ITERS").
+# bounce tail; on an earlier build every shortened first wave lost
+# throughput (the extra compaction pass cost more than the padded
+# iterations it saved), so the schedule stays (None, 4) — not yet
+# measured on the H100 (RIM_CONT_FIRST_WAVE=None means "same as
+# RIM_CONT_WAVE_ITERS").
 RIM_CONT_WAVE_ITERS = 96
 RIM_CONT_SHRINK = 4
 RIM_CONT_FIRST_WAVE: int | None = None
@@ -394,11 +391,11 @@ def _compact_gather(mask, vecs, ints, capacity: int, n: int,
     """Compact the lanes where ``mask`` holds into a ``capacity``-sized
     buffer with ONE packed row gather.
 
-    Separate per-field gathers dominate the deferred-rim cost on TPU
-    (random-access HBM reads; measured ~4x slower than gathering the same
-    bytes as contiguous rows at 16M lanes on v5e) — so the fields are
-    stacked into an ``[n, k]`` matrix first (cheap sequential writes) and
-    gathered as rows.  ``ints`` ride along as floats; exact while their
+    Separate per-field gathers are random-access device-memory reads (on
+    an earlier build several times slower than gathering the same
+    bytes as contiguous rows; not yet measured on the H100) — so the
+    fields are stacked into an ``[n, k]`` matrix first (cheap sequential
+    writes) and gathered as rows.  ``ints`` ride along as floats; exact while their
     values fit the mantissa (bounce counts <= 50,000 << 2^24).
 
     ``group_capacity``: when set (sparse masks — the rim-clip set), the
@@ -666,7 +663,7 @@ def trace_rays_rim_deferred(
         # trace_direct.py), their re-clipped escapes plus any lanes still
         # in the gap run the full in-loop kernel in a 8x-smaller tail.
         # Replaces a full-width while-loop-to-extinction whose cost
-        # dominated the rim overhead (~80 ms at 4M rays on v5e).
+        # dominated the rim overhead.
         (pos, direction, prev, status, bounces,
          n_overflow2) = _rim_continuation_hybrid(
             k_cont, scene, carry, cfg, radius, r_out, cos_tm, INF)

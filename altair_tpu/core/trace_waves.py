@@ -244,8 +244,11 @@ def trace_rays_auto(
       bounce loop at all); ``cfg.engine="simulate"`` opts out;
     * exact-rim scenes route through the rim-DEFERRED tracer (rim physics
       once per ray instead of once per lane-iteration; ~simple-mode cost);
-    * large batches run the wave-compaction tracer (2-3x at >=1M rays on
-      v5e) — as the rim-deferred main phase when both apply.
+    * the four static wall laws run the GPU bounce kernel
+      (``trace_pallas``) on the GPU backend, with the rim post-pass
+      around it for exact-rim scenes;
+    * otherwise large batches run the wave-compaction tracer — as the
+      rim-deferred main phase when both apply.
 
     Same TraceResult contract as ``trace_rays``."""
     from .trace import (
@@ -276,11 +279,10 @@ def trace_rays_auto(
         raise NotImplementedError(
             "engine='direct' requires a statically-Lambertian scene whose "
             "rim (if exact_rim) admits the deferred post-pass")
-    # Pallas VMEM kernel first where it applies: each lane block runs to
-    # completion on-chip with no HBM carry traffic, beating both the plain
-    # while-loop and the wave tracer (~20% at 1M rays, v5e 2026-08 — the
-    # transport's old 1.05 s pallas dispatch tax is gone); exact-rim scenes
-    # compose it with the deferred rim post-pass inside trace_rays_fast.
+    # the GPU bounce kernel first where it applies: each ray walks to its
+    # end in registers with no device-memory carry traffic (PERF.md,
+    # "Kernel decisions"); exact-rim scenes compose it with the deferred
+    # rim post-pass inside trace_rays_fast.
     from .trace_pallas import pallas_applicable, trace_rays_fast
 
     if pallas_applicable(scene, cfg):

@@ -3,8 +3,10 @@
 The compiled library is an independent implementation of the bounce loop and
 the trace-once scorer (see ``native/altair_native.cpp``) — the rebuild's
 equivalent of the reference's compiled ROBAST/ROOT tier.  It is optional:
-``available()`` is False when the shared library hasn't been built
-(``make -C native``), and every JAX code path works without it.
+the library is built from ``native/`` at first use when a C++ compiler and
+``make`` are present (it is never committed: ``-march=native`` binds it to
+the machine that builds it), ``available()`` is False when it cannot be
+built, and every JAX code path works without it.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import shutil
+import subprocess
 
 import numpy as np
 
@@ -26,19 +30,43 @@ _SEARCH_DIRS = (
 _lib = None
 
 
-def _load():
-    global _lib
-    if _lib is not None:
-        return _lib
+def _build() -> None:
+    """``make -C native`` into a private name, then an atomic rename, so
+    concurrent first uses (test workers) never load a half-written file."""
+    src = os.path.abspath(_SEARCH_DIRS[0])
+    if not (shutil.which("make") and shutil.which(os.environ.get("CXX", "g++"))
+            and os.path.exists(os.path.join(src, "altair_native.cpp"))):
+        return
+    tmp = f"{_LIB_NAMES[0]}.{os.getpid()}.tmp"
+    r = subprocess.run(["make", "-C", src, f"LIB={tmp}"],
+                       capture_output=True, text=True)
+    if r.returncode == 0:
+        os.replace(os.path.join(src, tmp), os.path.join(src, _LIB_NAMES[0]))
+
+
+def _find() -> str | None:
     for d in _SEARCH_DIRS:
         for name in _LIB_NAMES:
             path = os.path.abspath(os.path.join(d, name))
             if os.path.exists(path):
-                lib = ctypes.CDLL(path)
-                _bind(lib)
-                _lib = lib
-                return lib
+                return path
     return None
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = _find()
+    if path is None:
+        _build()
+        path = _find()
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    _bind(lib)
+    _lib = lib
+    return lib
 
 
 def _bind(lib):

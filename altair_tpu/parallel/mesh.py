@@ -2,15 +2,17 @@
 
 The reference's entire parallelism story is <=4 shared-memory threads inside
 ROBAST (``fluxAtObserverOptimize.C:450-454``) plus overnight wall-clock
-(SURVEY.md §2.3/§5.8).  The TPU-native equivalent: the ray batch axis is
-sharded over a 1-D ``rays`` mesh axis with ``shard_map``; every chip traces
-its shard independently (tracing is embarrassingly parallel) and the ONLY
+(SURVEY.md §2.3/§5.8).  Here the ray batch axis is sharded over a 1-D
+``rays`` mesh axis with ``shard_map``; every card traces its shard
+independently (tracing is embarrassingly parallel) and the ONLY
 cross-device traffic is one ``psum`` of the (theta, phi) hit-count histogram
-and the scalar counters at the end — a few hundred KB over ICI per sweep.
+and the scalar counters at the end — a few hundred KB per sweep, which XLA
+hands to NCCL over NVLink.  The cards of a host are joined all to all, so
+the mesh follows the algorithm alone.
 
-Multi-host: call ``jax.distributed.initialize()`` before ``make_mesh()`` and
-the same code runs over DCN-connected slices (the mesh spans all processes'
-devices; no further changes — single-controller JAX).
+Multi-host: call ``init_distributed`` before ``make_mesh()`` and the same
+code runs over every process's devices (single-controller JAX; one card per
+process on the GPU).
 """
 
 from __future__ import annotations
@@ -98,11 +100,13 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Multi-host bring-up: call once per process before ``make_mesh``.
 
-    Thin wrapper over ``jax.distributed.initialize`` (auto-detects on Cloud
-    TPU when called with no arguments).  After it returns, ``jax.devices()``
-    spans every host's chips and the same single-controller sweep code runs
-    across DCN-connected slices — the multi-node story the reference never
-    had (its scaling was 'leave it overnight', SURVEY.md §5.8).
+    Thin wrapper over ``jax.distributed.initialize``; pass the coordinator
+    address (``host:port``), the process count and this process's id —
+    nothing in a plain GPU host tells JAX of a cluster.  After it returns,
+    ``jax.devices()`` spans every process's cards and the same
+    single-controller sweep code runs across them — the multi-node story
+    the reference never had (its scaling was 'leave it overnight',
+    SURVEY.md §5.8).
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -113,7 +117,7 @@ def init_distributed(coordinator_address: str | None = None,
 
 def make_mesh(devices=None, axis_name: str = RAY_AXIS) -> Mesh:
     """1-D mesh over all (or the given) devices; the ray batch is the only
-    sharded axis in this workload — pure data parallelism over ICI."""
+    sharded axis in this workload — pure data parallelism."""
     devices = jax.devices() if devices is None else devices
     return jax.make_mesh((len(devices),), (axis_name,), devices=devices)
 
@@ -138,7 +142,7 @@ def sharded_fluxmap(
     full detector grid; returns (counts [n_theta, n_phi] int32, n_exited).
 
     The full trace-once sweep as ONE sharded kernel: per-chip trace ->
-    per-chip partial histogram -> single ``psum`` over ICI.
+    per-chip partial histogram -> single ``psum``.
     """
     n_dev = mesh.devices.size
     if n_rays % n_dev:

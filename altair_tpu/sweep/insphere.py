@@ -29,7 +29,7 @@ from ..core.score import hits_insphere_disk, insphere_disk_position
 # engine dispatch: the disk lives outside the sphere, so ANY engine's
 # final-segment contract feeds hits_insphere_disk (the corpus scene's
 # thick shell keeps it on the in-loop rim kernel; thin-shell user scenes
-# get the direct sampler / Pallas tiers)
+# get the direct sampler / GPU bounce-kernel tiers)
 from ..core.trace_waves import trace_rays_auto as trace_rays
 
 

@@ -5,15 +5,15 @@ same stdout protocol:
 
 * ``sweep_detector_trace_once``  <- ``sweepDetectorTraceOnce``
   (``fluxAtObserverFast.C:1068-1397``): trace all rays once, score every
-  grid position.  On TPU the 16,200-position scoring is three matmuls, so
-  the entire sweep is ONE device call.
+  grid position.  The 16,200-position scoring is a few matmuls, so the
+  entire sweep is two device calls (trace, score).
 * ``sweep_detector_retrace``     <- ``sweepDetector``
   (``fluxAtObserverOptimize.C:433-702``): fresh rays per position
   (statistically independent bins).  8.1x10^8 traces run as chunked device
   calls with immediate CSV flushing per chunk (crash-resume contract).
 * ``sweep_detector_twofold``     <- ``sweepDetectorTwofold``
   (``fluxAtObserverFast.C:518-865``): one trace batch scores two antipodal
-  detectors.  Subsumed by trace-once on TPU; provided for API parity as a
+  detectors.  Subsumed by trace-once; provided for API parity as a
   thin wrapper that reuses one batch per antipodal position pair.
 """
 

@@ -147,8 +147,8 @@ def sweep_scatter_retrace(
     mesh=None,
 ) -> ScatterRetraceSweep:
     """``sweepDetector`` of nonLambertianFlux.C (``:307-387``): 45x20 grid,
-    10x10 cm detector, 100k rays, scored on the scattered rays.  TPU-first:
-    one trace+rescatter+score call instead of re-tracing per position.
+    10x10 cm detector, 100k rays, scored on the scattered rays.  One
+    trace+rescatter+score device call instead of re-tracing per position.
 
     ``mesh``: shard the ray axis over a device mesh
     (``parallel.sharded_scatter_retrace`` — both stages chip-local, one

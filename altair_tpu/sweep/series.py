@@ -6,7 +6,7 @@ direction series) are sequential overnight loops.  Here a series is either
 
 * ``run_series`` — the faithful sequential driver (one CSV per member, same
   folder naming), or
-* ``run_series_vmapped`` — the TPU-first version: scene parameters become a
+* ``run_series_vmapped`` — the batched version: scene parameters become a
   batch axis (``vmap`` over the scene pytree), all members trace in one
   device call.
 """

@@ -31,22 +31,26 @@ REF = {
     "throughput_rays_s": 1.0e5,
 }
 
-# TPU v5e (v5 lite) peaks for the roofline/MFU accounting:
-#   MXU:  197 TFLOP/s bf16.  fp32 matmuls lower to multi-pass bf16
-#         (~1/8 rate) => ~24.6 TFLOP/s effective fp32-MXU ceiling.
-#   VPU:  8 sublanes x 128 lanes x 4 ALUs x ~0.94 GHz ~= 3.9 TFLOP/s fp32 —
-#         the relevant ceiling for the trace kernel (pure elementwise).
-#   HBM:  819 GB/s.
-# Ridge point (VPU): 3.9e12 / 819e9 ~= 4.8 flop/byte.
-V5E_PEAK = {
-    "mxu_bf16_flops": 197e12,
-    "mxu_fp32_flops": 24.6e12,
-    "vpu_fp32_flops": 3.9e12,
-    "hbm_bytes_s": 819e9,
+# Published peaks per device kind, for the roofline shares (NVIDIA's H100
+# data sheet, SXM part, dense, at the full 700 W power limit; a card set
+# below it cannot hold these under load, so report its power limit beside
+# any share).  A device that is not listed gets no shares: a peak is never
+# assumed.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "fp32_flops": 67e12,        # CUDA cores, outside the tensor cores
+        "tf32_flops": 495e12,       # tensor cores
+        "hbm_bytes_s": 3.35e12,
+    },
 }
 
 
-def roofline(scene, src, cfg, log, timeit):
+def peaks_for(device_kind: str) -> dict | None:
+    """The peak table row for ``device_kind``, or None if it is unknown."""
+    return PEAKS.get(device_kind)
+
+
+def roofline(scene, src, cfg, log, timeit, peaks):
     """MFU / roofline accounting for the two hot phases.
 
     FLOPs-per-bounce comes from XLA's own cost analysis of ONE compiled
@@ -91,10 +95,9 @@ def roofline(scene, src, cfg, log, timeit):
     bytes_s = lane_iters_s * bytes_per_bounce
     log("trace_lane_iters_per_s", round(lane_iters_s))
     log("trace_achieved_flops_s", round(flops_s))
-    log("trace_vpu_mfu_pct", round(100 * flops_s
-                                   / V5E_PEAK["vpu_fp32_flops"], 1))
-    log("trace_hbm_util_pct", round(100 * bytes_s
-                                    / V5E_PEAK["hbm_bytes_s"], 1))
+    if peaks:
+        log("trace_fp32_share_pct", 100 * flops_s / peaks["fp32_flops"])
+        log("trace_hbm_share_pct", 100 * bytes_s / peaks["hbm_bytes_s"])
 
     # ---- score phase ------------------------------------------------------
     from altair_tpu import DetectorGrid
@@ -112,10 +115,10 @@ def roofline(scene, src, cfg, log, timeit):
     t2 = timeit(fscore, res, repeats=3)
     log("score_flops", round(score_flops))
     log("score_achieved_flops_s", round(score_flops / t2))
-    log("score_mxu_fp32_pct", round(100 * score_flops / t2
-                                    / V5E_PEAK["mxu_fp32_flops"], 2))
-    log("score_vpu_pct", round(100 * score_flops / t2
-                               / V5E_PEAK["vpu_fp32_flops"], 1))
+    if peaks:
+        # the scorer's products run at Precision.HIGHEST: full fp32
+        log("score_fp32_share_pct",
+            100 * score_flops / t2 / peaks["fp32_flops"])
     intensity = (flops_per_bounce / bytes_per_bounce
                  if bytes_per_bounce else float("nan"))
     log("trace_arith_intensity_flop_per_byte", round(intensity, 2))
@@ -159,8 +162,10 @@ def main():
     src = SOURCE_OVERNIGHT
     grid = DetectorGrid()
     cfg = TraceConfig()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit(f"no GPU: JAX's first device is {jax.devices()[0]}")
     dev = jax.devices()[0].device_kind
-    out = {"device": dev}
+    out = {"device": dev, "platform": "gpu"}
 
     def log(k, v):
         out[k] = v
@@ -178,7 +183,7 @@ def main():
                 .status.sum())
     log("tracing_phase_s", timeit(f, jax.random.key(0)))
 
-    # -- bounce-simulating engine (Pallas on TPU), for comparison ----------
+    # -- bounce-simulating engine (the GPU bounce kernel), for comparison ---
     cfg_sim = TraceConfig(engine="simulate")
     f = jax.jit(lambda k: trace_rays_auto(k, scene, src, 100_000, cfg_sim)
                 .status.sum())
@@ -203,8 +208,7 @@ def main():
     f = jax.jit(lambda r: fluxmap_trace_once_compact(r, grid, cap)[0].sum())
     log("scoring_phase_compact_s", timeit(f, res))
 
-    # -- throughput (large batch; 16M amortises the ~30 ms transport
-    # dispatch floor that dominates smaller calls) --------------------------
+    # -- throughput (large batch) --------------------------------------------
     n_big = 16_000_000
     f = jax.jit(lambda k: trace_rays_auto(k, scene, src, n_big, cfg).status.sum())
     t = timeit(f, jax.random.key(2), repeats=2)
@@ -214,8 +218,8 @@ def main():
     t = timeit(f, jax.random.key(2), repeats=2)
     log("throughput_simulate_rays_s", n_big / t)
     # the non-Lambertian PRODUCTION path (nonLambertianFlux.C:307-387):
-    # MIXED_BRDF walls route through the same Pallas refill kernel + rim
-    # post-pass but with the 7-draw BRDF scatter in-kernel
+    # MIXED_BRDF walls route through the bounce kernel + rim post-pass
+    # with the 7-draw BRDF scatter in-kernel
     from altair_tpu.config import SurfaceModel
     sc_brdf = scene.with_(surface_model=SurfaceModel.MIXED_BRDF)
     f = jax.jit(lambda k: trace_rays_auto(k, sc_brdf, src, n_big, cfg)
@@ -224,7 +228,7 @@ def main():
     log("throughput_brdf_rays_s", n_big / t)
 
     # -- roofline / MFU accounting ------------------------------------------
-    roofline(scene, src, cfg, log, timeit)
+    roofline(scene, src, cfg, log, timeit, peaks_for(dev))
 
     # -- exit-fraction invariants ------------------------------------------
     fracs = {}
@@ -243,8 +247,7 @@ def main():
         k, scene, src, grid, 50_000, cfg, oversample=128).sum())
     log("retrace_binomial_total_s", timeit(f, jax.random.key(5)))
 
-    # -- full retrace sweep (8.1e8 traces, split into host-level calls so
-    # no single device execution exceeds the transport's limits) -----------
+    # -- full retrace sweep (8.1e8 traces, split into host-level calls) ------
     if not args.quick:
         import dataclasses
         from altair_tpu.core.score import grid_centers_normals
@@ -252,10 +255,8 @@ def main():
         sub_shape = dataclasses.replace(grid, n_theta=rows_per_call)
         C, Nrm = grid_centers_normals(grid, scene.exit_port_z)
         P_sub = rows_per_call * grid.n_phi
-        # chunk 32 positions/scan step = 1.6M rays per device iteration.
-        # Measured curve (v5e, recursive-hybrid rim): 16/32/45 ~1.15 s,
-        # 64 ~1.23 s per 10 rows, then a cliff (90 -> 2.9 s, memory
-        # pressure past ~4M rays/step) — 32 sits on the flat optimum.
+        # chunk 32 positions/scan step = 1.6M rays per device iteration
+        # (chosen on an earlier build, not yet measured on the H100)
         run_sub = jax.jit(lambda k, c, n: fluxmap_retrace(
             k, scene, src, sub_shape, 50_000, cfg, pos_chunk=32,
             centers_normals=(c, n)).sum())
@@ -272,7 +273,7 @@ def main():
         log("retrace_total_s", time.perf_counter() - t0)
 
     # -- report -------------------------------------------------------------
-    print(f"\n== altair-tpu benchmarks on {dev} ==\n")
+    print(f"\n== altair benchmarks on {dev} ==\n")
     rows = [
         ("trace-once total (100k rays, 180x90)", "traceonce_total_s"),
         ("tracing phase (100k rays)", "tracing_phase_s"),

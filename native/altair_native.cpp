@@ -9,7 +9,7 @@
 //   (2) the trace-once detector-grid scorer (the [rays x positions]
 //       plane/disk test),
 // exposed with a C ABI for ctypes.  It serves as (a) a no-JAX CPU fallback
-// and (b) an independent cross-validation oracle for the TPU path — two
+// and (b) an independent cross-validation oracle for the JAX path — two
 // implementations of the same physics written against the same spec.
 //
 // RNG: xoshiro256++ (public-domain algorithm by Blackman/Vigna), seeded
@@ -221,7 +221,7 @@ long long altair_trace_ex(
         double t = sphere_exit_t(p, d, inner_radius);
         V3 q = p + d * t;
         double rn = inner_radius / norm(q);
-        q = q * rn;  // re-project (parity with the TPU kernel)
+        q = q * rn;  // re-project (parity with the JAX kernels)
         if (q.z < cos_cap) {  // heading out through the port cap
           if (exact_rim) {
             // the escaping flight may clip the shell's conical rim face
@@ -334,7 +334,7 @@ long long altair_trace(
                          status, last_point, seg_start, direction, n_bounces);
 }
 
-// Closed-form direct sampler — the native fp64 cross-check of the TPU
+// Closed-form direct sampler — the native fp64 cross-check of the JAX
 // path's default engine (altair_tpu/core/trace_direct.py).  Simple-mode
 // Lambertian chain law: after the deterministic first flight, wall hits
 // are i.i.d. uniform on the sphere (uniform pairwise form factor), so the

@@ -146,3 +146,20 @@ class TestNativeScorer:
         C, N = grid_centers_normals(grid)
         np.testing.assert_allclose(cn, np.asarray(C), atol=1e-4)
         np.testing.assert_allclose(nn, np.asarray(N), atol=1e-6)
+
+
+def test_library_builds_from_source(tmp_path):
+    """The library is never committed: ``native/`` must build it (what
+    ``native._load`` does at first use)."""
+    import ctypes
+    import os
+    import shutil
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native")
+    for name in ("Makefile", "altair_native.cpp"):
+        shutil.copy(os.path.join(src, name), tmp_path / name)
+    subprocess.run(["make", "-C", str(tmp_path), "LIB=libtest.so"],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(tmp_path / "libtest.so"))
+    assert lib.altair_num_threads() >= 1

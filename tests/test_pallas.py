@@ -1,11 +1,15 @@
-"""Pallas TPU bounce kernel, tested on CPU via the Pallas TPU interpreter.
+"""The GPU bounce kernel (Pallas, Triton route), tested on the CPU.
 
-The hardware-PRNG stub of the interpreter returns zeros in this JAX
-version, so these tests run the kernel with its counter-based software
-RNG (``hw_prng=False``) — identical kernel code path otherwise, so the
-geometry/physics of the Mosaic kernel is what's under test.  The compiled
-hardware path is exercised by benchmarks/run_all.py on the real chip.
+The kernel runs here in Pallas' generic interpret mode — the same kernel
+code, RNG included, that the card compiles — so its geometry and physics
+are under test.  The dispatch, padding and stream rules are tested around
+it, and ``TestTritonLowering`` lowers the kernel for the CUDA platform to
+prove the Triton route accepts every primitive it uses.  The compiled
+kernel itself is exercised on the card by ``tests/test_gpu.py`` and
+``chip_smoke.py``.
 """
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -13,43 +17,48 @@ import numpy as np
 import pytest
 
 from altair_tpu import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, TraceConfig
+from altair_tpu.config import SurfaceModel
+from altair_tpu.core import trace_pallas
 from altair_tpu.core.trace import exit_count, trace_rays
 from altair_tpu.core.trace_pallas import (
     BLOCK,
-    _fmix32,
-    _sw_uniform,
+    _sw_uniforms,
+    _threefry2x32,
+    pallas_applicable,
     trace_rays_fast,
     trace_rays_pallas,
+    trace_rays_pallas_padded,
 )
 
 # cap 64 keeps the interpreter fast; both engines truncate identically so
 # the statistics stay comparable
 SCENE = SCENE_OPTIMIZE.with_(max_bounces=64, exact_rim=False)
 CFG = TraceConfig()
+N = 16_384
 
 
 @pytest.fixture(scope="module")
 def pallas_result():
-    return trace_rays_pallas(jax.random.key(0), SCENE, SOURCE_OVERNIGHT,
-                             BLOCK, CFG, interpret=True, hw_prng=False)
+    return trace_rays_pallas(jax.random.key(0), SCENE, SOURCE_OVERNIGHT, N,
+                             CFG, interpret=True)
 
 
 @pytest.fixture(scope="module")
 def xla_result():
-    return trace_rays(jax.random.key(1), SCENE, SOURCE_OVERNIGHT, BLOCK, CFG)
+    return trace_rays(jax.random.key(1), SCENE, SOURCE_OVERNIGHT, N, CFG)
 
 
 class TestPallasPhysics:
     def test_exit_fraction_matches_xla(self, pallas_result, xla_result):
-        f_p = int(exit_count(pallas_result)) / BLOCK
-        f_x = int(exit_count(xla_result)) / BLOCK
-        sigma = np.sqrt(f_x * (1 - f_x) / BLOCK) * np.sqrt(2)
+        f_p = int(exit_count(pallas_result)) / N
+        f_x = int(exit_count(xla_result)) / N
+        sigma = np.sqrt(f_x * (1 - f_x) / N) * np.sqrt(2)
         assert abs(f_p - f_x) < 4 * sigma, (f_p, f_x)
 
     def test_bounce_distribution_matches_xla(self, pallas_result, xla_result):
         b_p = np.asarray(pallas_result.n_bounces, np.float64)
         b_x = np.asarray(xla_result.n_bounces, np.float64)
-        se = np.sqrt(b_x.var() / BLOCK) * np.sqrt(2)
+        se = np.sqrt(b_x.var() / N) * np.sqrt(2)
         assert abs(b_p.mean() - b_x.mean()) < 4 * se, (b_p.mean(), b_x.mean())
 
     def test_exit_points_beyond_port(self, pallas_result):
@@ -82,16 +91,23 @@ class TestPallasPhysics:
 
 class TestPallasRimComposition:
     def test_exact_rim_via_deferred_postpass(self):
-        """trace_rays_fast on an exact-rim scene = Pallas main trace + the
-        deferred rim continuation; must agree with the XLA rim kernel."""
+        """The kernel's main trace + the deferred rim continuation (what
+        trace_rays_fast runs on the card) must agree with the XLA rim
+        kernel."""
+        from altair_tpu.core.trace import (
+            rim_deferred_capacity_shift,
+            trace_rays_rim_deferred,
+        )
+
         scene = SCENE.with_(exact_rim=True)
-        res = trace_rays_fast(jax.random.key(2), scene, SOURCE_OVERNIGHT,
-                              BLOCK, CFG, interpret=True, hw_prng=False)
-        ref = trace_rays(jax.random.key(3), scene, SOURCE_OVERNIGHT, BLOCK,
-                         CFG)
-        f_p = int(exit_count(res)) / BLOCK
-        f_x = int(exit_count(ref)) / BLOCK
-        sigma = np.sqrt(f_x * (1 - f_x) / BLOCK) * np.sqrt(2)
+        res, _ = trace_rays_rim_deferred(
+            jax.random.key(2), scene, SOURCE_OVERNIGHT, N, CFG,
+            capacity_shift=rim_deferred_capacity_shift(scene),
+            main_tracer=partial(trace_rays_pallas_padded, interpret=True))
+        ref = trace_rays(jax.random.key(3), scene, SOURCE_OVERNIGHT, N, CFG)
+        f_p = int(exit_count(res)) / N
+        f_x = int(exit_count(ref)) / N
+        sigma = np.sqrt(f_x * (1 - f_x) / N) * np.sqrt(2)
         assert abs(f_p - f_x) < 4 * sigma, (f_p, f_x)
         # the rim must have done something: some absorptions sit in the
         # shell band beyond the inner radius (rim-face kills)
@@ -113,24 +129,144 @@ class TestPallasGuards:
                               SCENE.with_(exact_rim=True),
                               SOURCE_OVERNIGHT, BLOCK, CFG)
 
-    def test_interpreter_requires_sw_prng(self):
-        with pytest.raises(ValueError):
-            trace_rays_pallas(jax.random.key(0), SCENE, SOURCE_OVERNIGHT,
-                              BLOCK, CFG, interpret=True, hw_prng=True)
-
-    def test_custom_callable_falls_back_to_xla(self):
+    def test_custom_callable_falls_back_to_xla(self, monkeypatch):
         """User scatter callables have no kernel lowering — the dispatch
-        must route them to the XLA kernel (COS_N_LOBE itself now runs in
-        the kernel, see TestPallasNonLambertian)."""
+        must route them to the XLA kernel even on the GPU backend."""
         from altair_tpu.core.sampling import cosine_hemisphere
 
         def custom(key, incident, normal, scene):
             return cosine_hemisphere(key, normal)
 
+        monkeypatch.setattr(trace_pallas, "_on_gpu", lambda: True)
         scene = SCENE.with_(surface_model=custom)
+        assert not pallas_applicable(scene, CFG)
         res = trace_rays_fast(jax.random.key(0), scene, SOURCE_OVERNIGHT,
-                              1000, CFG, interpret=True, hw_prng=False)
+                              1000, CFG)
         assert res.status.shape == (1000,)
+
+
+class TestPadding:
+    """trace_rays_pallas_padded: any batch size, truncated to n_rays."""
+
+    @pytest.mark.parametrize("n", [1000, 5])
+    def test_shapes_and_statuses(self, n):
+        res = trace_rays_pallas_padded(jax.random.key(0), SCENE,
+                                       SOURCE_OVERNIGHT, n, CFG,
+                                       interpret=True)
+        for a in jax.tree.leaves(res):
+            assert a.shape == (n,)
+        st = np.asarray(res.status)
+        assert ((st >= 1) & (st <= 3)).all()
+
+    def test_truncation_keeps_the_padded_prefix(self):
+        n = 3 * BLOCK + 7
+        cut = trace_rays_pallas_padded(jax.random.key(4), SCENE,
+                                       SOURCE_OVERNIGHT, n, CFG,
+                                       interpret=True)
+        full = trace_rays_pallas(jax.random.key(4), SCENE, SOURCE_OVERNIGHT,
+                                 4 * BLOCK, CFG, interpret=True)
+        for a, b in zip(jax.tree.leaves(cut), jax.tree.leaves(full)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b)[:n])
+
+
+class TestDispatch:
+    def test_cpu_backend_runs_xla(self):
+        """Off the GPU the dispatch is the plain XLA tracer: bit-identical
+        to trace_rays with the same key."""
+        assert not pallas_applicable(SCENE, CFG)
+        res = trace_rays_fast(jax.random.key(5), SCENE, SOURCE_OVERNIGHT,
+                              2048, CFG)
+        ref = trace_rays(jax.random.key(5), SCENE, SOURCE_OVERNIGHT, 2048,
+                         CFG)
+        np.testing.assert_array_equal(np.asarray(res.n_bounces),
+                                      np.asarray(ref.n_bounces))
+
+    def test_gpu_backend_picks_compiled_kernel(self, monkeypatch):
+        """On the GPU backend the kernel is chosen, never interpret mode."""
+        calls = []
+
+        def fake(key, scene, source, n_rays, cfg, interpret=False):
+            calls.append(interpret)
+            return trace_rays(key, scene, source, n_rays, cfg)
+
+        monkeypatch.setattr(trace_pallas, "_on_gpu", lambda: True)
+        monkeypatch.setattr(trace_pallas, "trace_rays_pallas", fake)
+        for scene in (SCENE, SCENE.with_(exact_rim=True)):
+            assert pallas_applicable(scene, CFG)
+            trace_rays_fast(jax.random.key(0), scene, SOURCE_OVERNIGHT,
+                            1000, CFG)
+        assert calls and not any(calls)
+
+    @pytest.mark.parametrize("cfg", [TraceConfig(keep_history=4),
+                                     TraceConfig(dtype=jnp.float64)])
+    def test_kernel_declines_history_and_f64(self, monkeypatch, cfg):
+        monkeypatch.setattr(trace_pallas, "_on_gpu", lambda: True)
+        assert not pallas_applicable(SCENE, cfg)
+
+    def test_auto_dispatch_reaches_kernel_on_gpu(self, monkeypatch):
+        """trace_rays_auto(engine='simulate') routes to trace_rays_fast
+        when the kernel applies."""
+        from altair_tpu.core import trace_waves
+
+        seen = []
+        monkeypatch.setattr(trace_pallas, "_on_gpu", lambda: True)
+        monkeypatch.setattr(
+            trace_pallas, "trace_rays_fast",
+            lambda *a: seen.append(a[3]) or trace_rays(*a))
+        trace_waves.trace_rays_auto(
+            jax.random.key(0), SCENE, SOURCE_OVERNIGHT, 512,
+            TraceConfig(engine="simulate"))
+        assert seen == [512]
+
+
+class TestStreams:
+    def test_same_key_identical(self, pallas_result):
+        again = trace_rays_pallas(jax.random.key(0), SCENE, SOURCE_OVERNIGHT,
+                                  N, CFG, interpret=True)
+        for a, b in zip(jax.tree.leaves(again),
+                        jax.tree.leaves(pallas_result)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    def test_different_keys_are_not_lane_permutations(self, pallas_result):
+        """key(0) and key(1) differ only in one low data bit: their lane
+        streams must be different walks, not the same walks on swapped
+        lanes (the sorted bounce counts would then coincide)."""
+        other = trace_rays_pallas(jax.random.key(1), SCENE, SOURCE_OVERNIGHT,
+                                  N, CFG, interpret=True)
+        a = np.asarray(pallas_result.n_bounces)
+        b = np.asarray(other.n_bounces)
+        assert (a != b).mean() > 0.5
+        assert not np.array_equal(np.sort(a), np.sort(b))
+
+    def test_lanes_are_not_shifts_of_each_other(self):
+        """Every (lane, bounce, draw) has its own 64-bit counter, so no
+        lane's stream is a shifted copy of another's: no two places in
+        65536 lanes x 64 draws share a pair of consecutive draws (~0.03
+        expected by chance; a single 32-bit counter per draw, lane base +
+        draw index, shares ~2000 here)."""
+        pairs = _consecutive_pairs(_draw_table(0, 0))
+        assert np.unique(pairs).size == pairs.size
+
+    def test_streams_of_two_keys_are_disjoint(self):
+        """key(0) and key(1) differ in one key bit: their streams share no
+        pair of consecutive draws anywhere."""
+        a = _consecutive_pairs(_draw_table(0, 0))
+        b = _consecutive_pairs(_draw_table(0, 1))
+        assert np.intersect1d(a, b).size == 0
+
+
+def _draw_table(k0, k1, lanes=1 << 16, bounces=32):
+    """u32-valued draws (x 2^24) of ``lanes`` rays over ``bounces``
+    two-draw bounces, one row per lane."""
+    lane = jnp.arange(lanes, dtype=jnp.uint32)[:, None]
+    it = jnp.arange(bounces, dtype=jnp.uint32)[None, :]
+    u0, u1 = _sw_uniforms(jnp.uint32(k0), jnp.uint32(k1), lane, it, 2)
+    u = np.stack([np.asarray(u0), np.asarray(u1)], axis=-1)
+    return (u.reshape(lanes, -1) * (1 << 24)).astype(np.int64)
+
+
+def _consecutive_pairs(u):
+    return ((u[:, :-1] << 24) | u[:, 1:]).ravel()
 
 
 class TestPallasNonLambertian:
@@ -141,21 +277,19 @@ class TestPallasNonLambertian:
     @pytest.mark.parametrize("model_name",
                              ["SPECULAR", "MIXED_BRDF", "COS_N_LOBE"])
     def test_exit_stats_match_xla(self, model_name):
-        from altair_tpu.config import SurfaceModel
-
         scene = SCENE.with_(surface_model=SurfaceModel[model_name])
         res_p = trace_rays_pallas(jax.random.key(4), scene, SOURCE_OVERNIGHT,
-                                  BLOCK, CFG, interpret=True, hw_prng=False)
+                                  N, CFG, interpret=True)
         res_x = trace_rays(jax.random.key(5), scene, SOURCE_OVERNIGHT,
-                           BLOCK, CFG)
-        f_p = int(exit_count(res_p)) / BLOCK
-        f_x = int(exit_count(res_x)) / BLOCK
-        sigma = np.sqrt(max(f_x, 1e-3) * (1 - min(f_x, 0.999)) / BLOCK)
+                           N, CFG)
+        f_p = int(exit_count(res_p)) / N
+        f_x = int(exit_count(res_x)) / N
+        sigma = np.sqrt(max(f_x, 1e-3) * (1 - min(f_x, 0.999)) / N)
         assert abs(f_p - f_x) < 5 * sigma * np.sqrt(2), (model_name, f_p,
                                                          f_x)
         b_p = np.asarray(res_p.n_bounces, np.float64)
         b_x = np.asarray(res_x.n_bounces, np.float64)
-        se = np.sqrt(b_x.var() / BLOCK) * np.sqrt(2)
+        se = np.sqrt(b_x.var() / N) * np.sqrt(2)
         assert abs(b_p.mean() - b_x.mean()) < 5 * se, (model_name,
                                                        b_p.mean(),
                                                        b_x.mean())
@@ -163,13 +297,11 @@ class TestPallasNonLambertian:
     def test_specular_exit_direction_profile(self):
         """A specular chamber preserves strong directionality: the exit
         z-direction distribution must agree between kernels (moments)."""
-        from altair_tpu.config import SurfaceModel
-
         scene = SCENE.with_(surface_model=SurfaceModel.SPECULAR)
         res_p = trace_rays_pallas(jax.random.key(6), scene, SOURCE_OVERNIGHT,
-                                  BLOCK, CFG, interpret=True, hw_prng=False)
+                                  N, CFG, interpret=True)
         res_x = trace_rays(jax.random.key(7), scene, SOURCE_OVERNIGHT,
-                           BLOCK, CFG)
+                           N, CFG)
 
         def mu(res):
             m = np.asarray(res.exited_port_mask())
@@ -183,144 +315,42 @@ class TestPallasNonLambertian:
                                                          dz_x.mean())
 
 
-class TestRefillKernel:
-    """The ray-refill kernel (budget rays per lane, respawn on death) —
-    physics vs the XLA kernel in interpret mode."""
+class TestTritonLowering:
+    """Lower the compiled kernel for the CUDA platform (no card needed):
+    every primitive must have a Triton-route lowering rule, and the
+    program must carry the kernel as a Triton custom call."""
 
-    @pytest.fixture(scope="class")
-    def refill_result(self):
-        from altair_tpu.core.trace_pallas import trace_rays_refill
-
-        return trace_rays_refill(jax.random.key(0), SCENE, SOURCE_OVERNIGHT,
-                                 BLOCK * 2, CFG, rays_per_lane=2,
-                                 interpret=True, hw_prng=False)
-
-    def test_exit_fraction_matches_xla(self, refill_result):
-        n = BLOCK * 2
-        f_r = int(exit_count(refill_result)) / n
-        ref = trace_rays(jax.random.key(1), SCENE, SOURCE_OVERNIGHT, n, CFG)
-        f_x = int(exit_count(ref)) / n
-        sigma = np.sqrt(f_x * (1 - f_x) / n) * np.sqrt(2)
-        assert abs(f_r - f_x) < 4 * sigma, (f_r, f_x)
-
-    def test_per_slot_results_are_complete(self, refill_result):
-        st = np.asarray(refill_result.status)
-        assert ((st == 1) | (st == 2) | (st == 3)).all()  # every slot filled
-        # both slots of each lane produced real rays: slot-wise exit
-        # fractions agree (iid respawns)
-        f0 = (st[:BLOCK] == 1).mean()
-        f1 = (st[BLOCK:] == 1).mean()
-        assert abs(f0 - f1) < 4 * np.sqrt(0.3 * 0.7 / BLOCK) * np.sqrt(2)
-
-    def test_segment_contract(self, refill_result):
-        """seg_start sits on the shell (the cap/wall crossing) and exits'
-        last points lie beyond the port plane."""
-        st = np.asarray(refill_result.status)
-        s = np.asarray(refill_result.seg_start.stack())
-        r = np.linalg.norm(s, axis=1)
-        np.testing.assert_allclose(r, 100.1, atol=1e-2)
-        z = np.asarray(refill_result.last_point.z)
-        assert (z[st == 1] < -100.0).all()
-
-    def test_block_multiple_guard(self):
-        from altair_tpu.core.trace_pallas import trace_rays_refill
-
-        with pytest.raises(ValueError):
-            trace_rays_refill(jax.random.key(0), SCENE, SOURCE_OVERNIGHT,
-                              BLOCK * 2 + 1, CFG, rays_per_lane=2)
-
-
-class TestRefillHandoff:
-    """Tail handoff: the refill loop exits at <= handoff_frac stragglers,
-    which finish in the XLA waves tracer.  An aggressive fraction (40%)
-    routes a large population through the continuation so the physics
-    comparison actually exercises it (the production scene at the
-    interpreter's cap leaves no tail at small fractions)."""
-
-    SCENE_H = SCENE_OPTIMIZE.with_(max_bounces=512, exact_rim=False)
-
-    @pytest.fixture(scope="class")
-    def handoff_result(self):
-        from altair_tpu.core.trace_pallas import trace_rays_refill
-
-        return trace_rays_refill(jax.random.key(0), self.SCENE_H,
-                                 SOURCE_OVERNIGHT, BLOCK * 2, CFG,
-                                 rays_per_lane=2, interpret=True,
-                                 hw_prng=False, handoff_frac=0.40)
-
-    def test_no_running_slots(self, handoff_result):
-        st = np.asarray(handoff_result.status)
-        assert ((st >= 1) & (st <= 3)).all()
-
-    def test_physics_matches_xla(self, handoff_result):
-        n = BLOCK * 2
-        rx = trace_rays(jax.random.key(5), self.SCENE_H, SOURCE_OVERNIGHT,
-                        n, CFG)
-        st, stx = np.asarray(handoff_result.status), np.asarray(rx.status)
-        f, fx = (st == 1).mean(), (stx == 1).mean()
-        sigma = np.sqrt(fx * (1 - fx) / n) * np.sqrt(2)
-        assert abs(f - fx) < 5 * sigma, (f, fx)
-        b, bx = (np.asarray(handoff_result.n_bounces),
-                 np.asarray(rx.n_bounces))
-        se = np.sqrt(bx.var() / n) * np.sqrt(2)
-        assert abs(b.mean() - bx.mean()) < 5 * se, (b.mean(), bx.mean())
-
-    def test_segment_on_escape_line(self, handoff_result):
-        """Straggler exits carry the XLA seg_start convention (wall point
-        or source) — every seg_start must still sit on a line that exits
-        the port: last_point beyond the port plane, and the recomputed
-        shell crossing (sphere_hit semantics) in the cap."""
-        st = np.asarray(handoff_result.status)
-        z = np.asarray(handoff_result.last_point.z)
-        assert (z[st == 1] < -100.0).all()
-
-    def test_deterministic(self, handoff_result):
-        from altair_tpu.core.trace_pallas import trace_rays_refill
-
-        r2 = trace_rays_refill(jax.random.key(0), self.SCENE_H,
-                               SOURCE_OVERNIGHT, BLOCK * 2, CFG,
-                               rays_per_lane=2, interpret=True,
-                               hw_prng=False, handoff_frac=0.40)
-        assert (np.asarray(r2.status)
-                == np.asarray(handoff_result.status)).all()
-        np.testing.assert_array_equal(np.asarray(r2.n_bounces),
-                                      np.asarray(handoff_result.n_bounces))
-
-    @pytest.mark.slow
-    def test_multi_block_grid(self):
-        """n_blocks > 1 exercises the straggler (block, slot, lane) index
-        arithmetic — each block gets its own threshold and live planes."""
-        from altair_tpu.core.trace_pallas import trace_rays_refill
-
-        scene = SCENE_OPTIMIZE.with_(max_bounces=256, exact_rim=False)
-        n = BLOCK * 2 * 2  # 2 blocks at budget 2
-        r = trace_rays_refill(jax.random.key(3), scene, SOURCE_OVERNIGHT,
-                              n, CFG, rays_per_lane=2, interpret=True,
-                              hw_prng=False, handoff_frac=0.40)
-        st = np.asarray(r.status)
-        assert ((st >= 1) & (st <= 3)).all()
-        rx = trace_rays(jax.random.key(6), scene, SOURCE_OVERNIGHT,
-                        BLOCK * 2, CFG)
-        f, fx = (st == 1).mean(), (np.asarray(rx.status) == 1).mean()
-        sigma = np.sqrt(fx * (1 - fx) / (BLOCK * 2)) * np.sqrt(2)
-        assert abs(f - fx) < 5 * sigma, (f, fx)
-        # per-block exit fractions agree (block-independent respawn law)
-        f0 = (st[:n // 2] == 1).mean()
-        f1 = (st[n // 2:] == 1).mean()
-        assert abs(f0 - f1) < 5 * np.sqrt(fx * (1 - fx) / (n // 2)) * 2
-        z = np.asarray(r.last_point.z)
-        assert (z[st == 1] < -100.0).all()
+    @pytest.mark.parametrize("model", list(SurfaceModel))
+    def test_kernel_lowers_for_cuda(self, model):
+        scene = SCENE.with_(surface_model=model, max_bounces=4096)
+        text = jax.jit(lambda k: trace_rays_pallas(
+            k, scene, SOURCE_OVERNIGHT, 4 * BLOCK)).trace(
+                jax.random.key(0)).lower(
+                    lowering_platforms=("cuda",)).as_text()
+        assert "__gpu$xla.gpu.triton" in text
+        assert "altair_bounce" in text
 
 
 class TestSwUniform:
+    # Random123's known-answer vectors for Threefry-2x32, 20 rounds
+    @pytest.mark.parametrize("key,ctr,expected", [
+        ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+        ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+         (0x1CB996FC, 0xBB002BE7)),
+        ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+         (0xC4923A9C, 0x483DF7A0)),
+    ])
+    def test_threefry_known_answers(self, key, ctr, expected):
+        out = _threefry2x32(*(jnp.uint32(v) for v in key + ctr))
+        assert tuple(int(w) for w in out) == expected
+
     def test_distribution_moments(self):
-        """The counter-based hash must be a credible U[0,1): moments and
-        range checked outside the kernel (plain jnp ops)."""
+        """The kernel's draws must be a credible U[0,1): moments and range
+        checked outside the kernel (plain jnp ops)."""
         lane = jnp.arange(1 << 14, dtype=jnp.uint32)
-        lane_h = _fmix32(lane ^ jnp.uint32(0xDEADBEEF))
         draws = np.stack([
-            np.asarray(_sw_uniform_host(lane_h, jnp.uint32(c)))
-            for c in range(8)
+            np.asarray(u) for u in _sw_uniforms(
+                jnp.uint32(0xDEADBEEF), jnp.uint32(7), lane, jnp.int32(3), 8)
         ])
         assert draws.min() >= 0.0 and draws.max() < 1.0
         assert abs(draws.mean() - 0.5) < 0.005
@@ -328,9 +358,3 @@ class TestSwUniform:
         # draws at different counters are decorrelated
         c = np.corrcoef(draws[0], draws[1])[0, 1]
         assert abs(c) < 0.05
-
-
-def _sw_uniform_host(lane_h, ctr):
-    """Host-side replica of _sw_uniform (pltpu.bitcast needs a kernel)."""
-    h = _fmix32(lane_h + ctr * jnp.uint32(0x9E3779B9))
-    return (h >> jnp.uint32(8)).astype(jnp.float32) * float(2.0 ** -24)

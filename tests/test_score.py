@@ -256,3 +256,29 @@ class TestMxuScorer:
         # compacted batch can flip edge pairs by a count or two
         assert np.abs(np.asarray(compact).astype(np.int64)
                       - full.astype(np.int64)).max() <= 2
+
+
+class TestParallelGuard:
+    def test_guard_matches_exact_on_near_parallel_pairs(self):
+        """The Plucker scorer's K=3 parallel guard (Precision.HIGHEST)
+        excludes exactly the pairs the exact scorer excludes: with the disk
+        condition forced true in both, only |d.n| >= 1e-10 decides."""
+        delta = np.array([0.0, 1e-9, 1e-7, 1e-5, 1e-3])
+        D = np.stack([np.ones_like(delta), np.zeros_like(delta), delta], 1)
+        D = jnp.asarray(D / np.linalg.norm(D, axis=1, keepdims=True),
+                        jnp.float32)
+        E = jnp.zeros_like(D).at[:, 2].set(-150.0)
+        Nrm = jnp.asarray([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], jnp.float32)
+        C = jnp.zeros((2, 3), jnp.float32)
+        rowmask = jnp.ones((5,), bool)
+        iu0, iu1 = np.triu_indices(6)
+        # s = -(dx^2 + dy^2 + dz^2) = -1 < 0: the disk test always passes
+        W = jnp.asarray(np.where((iu0 == iu1) & (iu0 >= 3), -1.0, 0.0),
+                        jnp.float32)[None].repeat(2, 0)
+        Phi = score._plucker_features(E, D)
+        guard_mxu = np.asarray(score._hits_block_mxu(Phi, D, rowmask, W,
+                                                     Nrm))
+        guard_exact = np.asarray(score._hits_block(E, D, rowmask, C, Nrm,
+                                                   1e15))
+        np.testing.assert_array_equal(guard_mxu, guard_exact)
+        np.testing.assert_array_equal(guard_mxu, [4, 4])
